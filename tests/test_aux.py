@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from ptdn_tpu.engine import Renderer
-from ptdn_tpu.scene import Scene
-from ptdn_tpu.utils.checkpoint import load_state, restore_renderer, save_state
-from ptdn_tpu.utils.config import RenderConfig
-from ptdn_tpu.utils.stats import StatsCollector
+from ptdn.engine import Renderer
+from ptdn.scene import Scene
+from ptdn.utils.checkpoint import load_state, restore_renderer, save_state
+from ptdn.utils.config import RenderConfig
+from ptdn.utils.stats import StatsCollector
 
-from ptdn_tpu.utils.assets import scenes_dir
+from ptdn.utils.assets import scenes_dir
 
 scene_path_str = str(scenes_dir())
 
@@ -64,21 +64,92 @@ def test_stats_collector(cornell):
     assert "rays_per_s" in st.json()
 
 
+def _read_png(path):
+    """Minimal decoder for the RGB8 PNGs image_io writes (one IDAT
+    stream, every scanline with filter 0)."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        crc, = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert crc == zlib.crc32(tag + body) & 0xFFFFFFFF
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype = hdr[:4]
+    assert (depth, ctype) == (8, 2)
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def test_png_writer_roundtrip(tmp_path):
+    """save_png (zlib + struct only) writes clamp(int(x*255)) RGB8."""
+    from ptdn.utils.image_io import save_png, to_uint8
+
+    img = np.random.default_rng(1).uniform(-0.2, 1.2, (5, 7, 3))
+    p = save_png(str(tmp_path / "rt"), img)
+    assert p.endswith(".png")
+    np.testing.assert_array_equal(_read_png(p), to_uint8(img))
+
+
+def test_png_writer_readable_by_pillow(tmp_path):
+    """Any PNG reader takes the file: Pillow decodes the same pixels."""
+    Image = pytest.importorskip("PIL.Image")
+    from ptdn.utils.image_io import save_png, to_uint8
+
+    img = np.random.default_rng(2).uniform(0, 1, (9, 4, 3))
+    p = save_png(str(tmp_path / "pil"), img)
+    with Image.open(p) as im:
+        assert im.mode == "RGB" and im.size == (4, 9)
+        np.testing.assert_array_equal(np.asarray(im), to_uint8(img))
+
+
+@pytest.mark.parametrize("name", ["chair.jpg", "wallpaper.jpg"])
+def test_decoded_texture_matches_jpeg(name):
+    """The vendored decoded pixels the renderer loads equal Pillow's
+    decode of the JPEG (scenes/decode_textures.py made them), so texel
+    values and the goldens stay where they were."""
+    Image = pytest.importorskip("PIL.Image")
+    from ptdn.utils.image_io import load_texture_rgb
+
+    path = str(scenes_dir() / "Textures" / name)
+    with Image.open(path) as im:
+        want = np.asarray(im.convert("RGB"), np.uint8)
+    got = load_texture_rgb(path)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+
+
+def test_missing_decoded_texture_is_an_error(tmp_path):
+    from ptdn.utils.image_io import load_texture_rgb
+
+    with pytest.raises(FileNotFoundError, match="decode_textures.py"):
+        load_texture_rgb(str(tmp_path / "nope.jpg"))
+
+
 def test_save_image_like_reference(tmp_path):
-    from ptdn_tpu.utils import image_io
+    from ptdn.utils import image_io
 
     img = np.zeros((4, 6, 3), np.float32)
     img[:, 0] = [1, 0, 0]  # leftmost column red
     path = image_io.save_image_like_reference(
         img, "testimg", 7, out_dir=str(tmp_path))
     assert "testimg." in path and path.endswith("samp.png")
-    back = image_io.load_image_rgb(path)
+    back = _read_png(path)
     # horizontal flip (main.cpp:140): red ends up rightmost
     assert (back[:, -1] == [255, 0, 0]).all()
 
 
 def test_hdr_writer_roundtrip(tmp_path):
-    from ptdn_tpu.utils.image_io import save_hdr
+    from ptdn.utils.image_io import save_hdr
 
     img = np.random.default_rng(0).uniform(0, 4, (8, 8, 3)).astype(np.float32)
     p = save_hdr(str(tmp_path / "x"), img)
@@ -100,7 +171,7 @@ def test_config_static_vs_traced():
 
 def test_cli_config_mapping():
     """Every reference ui_* control is reachable from the CLI."""
-    from ptdn_tpu.app.cli import build_arg_parser, config_from_args
+    from ptdn.app.cli import build_arg_parser, config_from_args
 
     args = build_arg_parser().parse_args([
         "scene.txt", "--depth", "7", "--denoise", "--temporal", "--spatial",
@@ -125,16 +196,13 @@ def test_show_texture_flag(cornell):
     """SHOW_TEXTURE=0 equivalent: textured materials fall back to RGB."""
     import jax.numpy as jnp
 
-    from ptdn_tpu.engine.wavefront import albedo_from, make_mat_reader
+    from ptdn.engine.wavefront import albedo_from, read_mat, sample_texture
 
     ds = cornell.device()
-    cfg = RenderConfig()
-    read = make_mat_reader(cfg)
-    from ptdn_tpu.engine.wavefront import sample_texture
 
     mat = jnp.full(4, 8, jnp.int32)  # textured wall material
     uv = jnp.full((4, 2), 0.5, jnp.float32)
-    mv = read(ds, mat)
+    mv = read_mat(ds, mat)
     with_tex = np.asarray(albedo_from(ds, mv, uv, True))
     without = np.asarray(albedo_from(ds, mv, uv, False))
     np.testing.assert_allclose(

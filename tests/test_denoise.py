@@ -1,15 +1,15 @@
 """SVGF denoiser unit tests: reprojection math against hand-computed
-cases, à-trous invariants, Pallas/XLA parity, debug views."""
+cases, à-trous invariants, reprojection-variant parity, debug views."""
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from ptdn_tpu.denoise.atrous import atrous_level, gaussian3x3
-from ptdn_tpu.denoise.reproject import back_projection, luminance
-from ptdn_tpu.denoise.svgf import init_denoise_state, make_denoise_fn
-from ptdn_tpu.utils.config import RenderConfig
+from ptdn.denoise.atrous import atrous_level, gaussian3x3
+from ptdn.denoise.reproject import back_projection, luminance
+from ptdn.denoise.svgf import init_denoise_state, make_denoise_fn
+from ptdn.utils.config import RenderConfig
 
 H = W = 16
 
@@ -118,31 +118,6 @@ def test_atrous_edge_stopping_at_normal_edge():
     np.testing.assert_allclose(out[:, W // 2:], 0.0, atol=1e-3)
 
 
-def test_atrous_pallas_parity_interpret():
-    from ptdn_tpu.ops.pallas.atrous import (atrous_level_pallas,
-                                            pack_static_planes)
-
-    rng = np.random.default_rng(3)
-    h, w = 64, 48
-    color = jnp.asarray(rng.uniform(size=(h, w, 3)).astype(np.float32))
-    var = jnp.asarray(rng.uniform(size=(h, w)).astype(np.float32))
-    gb = {
-        "position": jnp.asarray(rng.normal(size=(h, w, 3)).astype(np.float32)),
-        "normal": jnp.asarray(rng.normal(size=(h, w, 3)).astype(np.float32)),
-        "albedo": jnp.asarray(rng.uniform(size=(h, w, 3)).astype(np.float32)),
-        "ialbedo": jnp.ones((h, w, 3), jnp.float32),
-    }
-    sp, halo = pack_static_planes(gb, max_level=4)
-    for level, last in [(1, False), (4, True)]:
-        c0, v0 = atrous_level(color, var, gb, level, last,
-                              0.45, 0.2, 0.35, True, True)
-        c1, v1 = atrous_level_pallas(color, var, sp, halo, (h, w), level,
-                                     last, 0.45, 0.2, 0.35, True, True,
-                                     interpret=True)
-        np.testing.assert_allclose(np.asarray(c0), np.asarray(c1), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(v0), np.asarray(v1), atol=1e-5)
-
-
 def test_svgf_debug_views():
     cfg = RenderConfig(denoise_enable=True, temporal_enable=True,
                        spatial_enable=True, right_view_option=2)
@@ -176,7 +151,7 @@ def test_spatial_variance_native_mode():
     spatial moment estimate: on a flat wall with iid noise the estimate
     approaches the true luminance variance; across a geometric edge the
     bilateral weights keep the moments from mixing."""
-    from ptdn_tpu.denoise.variance import spatial_variance
+    from ptdn.denoise.variance import spatial_variance
 
     rng = np.random.default_rng(7)
     gb = _flat_gbuffer()
@@ -222,7 +197,7 @@ def test_spatial_variance_native_mode():
 def test_spatial_variance_short_history_fallback():
     """Temporal ON + compat=False: pixels with history < 4 frames take
     the spatial estimate; long-history pixels keep the temporal one."""
-    from ptdn_tpu.denoise.variance import variance_with_spatial_fallback
+    from ptdn.denoise.variance import variance_with_spatial_fallback
 
     gb = _flat_gbuffer()
     color = jnp.full((H, W, 3), 0.5, jnp.float32)
@@ -246,7 +221,7 @@ def test_spatial_variance_short_history_fallback():
 def test_backprojection_packed_parity():
     """The 9-gather packed reprojection must match the reference-shaped
     implementation exactly."""
-    from ptdn_tpu.denoise.reproject import back_projection_packed
+    from ptdn.denoise.reproject import back_projection_packed
 
     rng = np.random.default_rng(5)
     h = w = 24
@@ -268,8 +243,8 @@ def test_backprojection_packed_parity():
     hl = jnp.asarray(rng.integers(0, 6, size=(h, w)).astype(np.int32))
     args = ((w, h), color, gb_c, gb_p, jnp.asarray(vm), ch, mh, hl,
             jnp.float32(0.2), jnp.float32(0.2))
-    from ptdn_tpu.denoise.reproject import (back_projection_packed2,
-                                            back_projection_window)
+    from ptdn.denoise.reproject import (back_projection_packed2,
+                                        back_projection_window)
 
     a = back_projection(*args)
     for impl in (back_projection_packed, back_projection_packed2,
@@ -323,9 +298,9 @@ def test_backprojection_stencil_parity(stencil_args):
     """The gather-free stencil path must match back_projection_window
     BIT-exactly when every reprojected base is within +-1 px (its gate),
     and back_projection_auto must dispatch to it."""
-    from ptdn_tpu.denoise.reproject import (back_projection_auto,
-                                            back_projection_stencil,
-                                            back_projection_window)
+    from ptdn.denoise.reproject import (back_projection_auto,
+                                        back_projection_stencil,
+                                        back_projection_window)
 
     args = stencil_args
     a = back_projection_window(*args)
@@ -338,64 +313,14 @@ def test_backprojection_stencil_parity(stencil_args):
                                    atol=1e-5, err_msg=name)
 
 
-def test_backprojection_stencil_pallas_parity(stencil_args):
-    """The fused Pallas reprojection kernel must match the XLA stencil
-    (and therefore the reference math) on its gated domain."""
-    from ptdn_tpu.denoise.reproject import (back_projection_auto,
-                                            back_projection_stencil)
-    from ptdn_tpu.ops.pallas.reproject import back_projection_stencil_pallas
-
-    args = stencil_args
-    a = back_projection_stencil(*args)
-    b = back_projection_stencil_pallas(*args, interpret=True)
-    for x, y, name in zip(a, b, ["var", "color", "moment", "hist"]):
-        np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                   atol=2e-6, err_msg=name)
-    # the auto dispatcher must route the near path to the kernel
-    c = back_projection_auto(*args, pallas_interpret=True)
-    for x, y, name in zip(a, c, ["var", "color", "moment", "hist"]):
-        np.testing.assert_allclose(np.asarray(x), np.asarray(y),
-                                   atol=2e-6, err_msg=name)
-
-
-def test_backprojection_atrous1_fused_parity(stencil_args):
-    """The fused reprojection + à-trous-level-1 kernel must match the
-    composition of its two parity-tested oracles (back_projection_stencil
-    -> atrous_level at level 1) on the stencil's gated domain — including
-    the moment/history side outputs and the level-1 variance."""
-    from ptdn_tpu.denoise.atrous import atrous_level
-    from ptdn_tpu.denoise.reproject import back_projection_stencil
-    from ptdn_tpu.ops.pallas.reproject_atrous import \
-        back_projection_atrous1_pallas
-
-    args = stencil_args
-    res, color, gb_c = args[0], args[1], args[2]
-    sig = dict(sigma_l=jnp.float32(0.45), sigma_n=jnp.float32(0.2),
-               sigma_x=jnp.float32(0.35))
-    for blur in (False, True):
-        var0, acc, mom, hist = back_projection_stencil(*args)
-        c_ref, v_ref = atrous_level(acc, var0, gb_c, 1, is_last=False,
-                                    blur_variance=blur, add_color=False,
-                                    **sig)
-        c_f, v_f, mom_f, hist_f = back_projection_atrous1_pallas(
-            *args, blur_variance=blur, interpret=True, **sig)
-        np.testing.assert_allclose(np.asarray(c_ref), np.asarray(c_f),
-                                   atol=2e-5, err_msg="color")
-        np.testing.assert_allclose(np.asarray(v_ref), np.asarray(v_f),
-                                   atol=2e-5, err_msg="var")
-        np.testing.assert_allclose(np.asarray(mom), np.asarray(mom_f),
-                                   atol=2e-6, err_msg="moments")
-        assert np.array_equal(np.asarray(hist), np.asarray(hist_f))
-
-
 def test_backprojection_banded_parity():
     """The banded slab gather must match back_projection_window
     BIT-exactly whenever vertical displacement <= its margin (the
     back_projection_auto gate), including partial last bands and
     geom_id == -1 pixels (whose gathered rows differ between paths but
     are never read through the validity mask)."""
-    from ptdn_tpu.denoise.reproject import (back_projection_banded,
-                                            back_projection_window)
+    from ptdn.denoise.reproject import (back_projection_banded,
+                                        back_projection_window)
 
     rng = np.random.default_rng(11)
     h, w = 70, 48   # not divisible by band_rows: exercises partial band
@@ -470,9 +395,9 @@ def test_backprojection_banded_fast_pan_exact():
     here a ~40 px/frame pan (2.5x margin) with +-8 px local scatter —
     so back_projection_auto needs no packed-window fallback branch (and
     its ~750 MB 1080p table never enters the animated program)."""
-    from ptdn_tpu.denoise.reproject import (back_projection_auto,
-                                            back_projection_banded,
-                                            back_projection_window)
+    from ptdn.denoise.reproject import (back_projection_auto,
+                                        back_projection_banded,
+                                        back_projection_window)
 
     rng = np.random.default_rng(17)
     h, w = 70, 48
@@ -494,7 +419,7 @@ def test_backprojection_banded_residual_overflow_rejects():
     """A pixel whose vertical flow deviates from its band's mean by more
     than the slab tolerance must have its history REJECTED (restart:
     hist=1, variance=100), never silently read a clamped row."""
-    from ptdn_tpu.denoise.reproject import back_projection_banded
+    from ptdn.denoise.reproject import back_projection_banded
 
     h, w = 64, 48
     dy = np.zeros((h, w), np.float32)

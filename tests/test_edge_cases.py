@@ -1,12 +1,13 @@
 """Edge-case scenes and configs: pure-analytic scenes (no mesh), depth 1,
-atrous level 0, non-lane-aligned resolutions, empty-light handling."""
+atrous level 0, odd resolutions, empty-light handling."""
 
+import jax
 import numpy as np
 import pytest
 
-from ptdn_tpu.engine import Renderer
-from ptdn_tpu.scene import Scene
-from ptdn_tpu.utils.config import RenderConfig
+from ptdn.engine import Renderer
+from ptdn.scene import Scene
+from ptdn.utils.config import RenderConfig
 
 PURE_ANALYTIC = """\
 MATERIAL 0
@@ -65,14 +66,18 @@ def analytic_scene(tmp_path_factory):
     return Scene(str(p))
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("backend", ["xla", "gpu"])
 def test_pure_analytic_scene(analytic_scene, backend):
     """No mesh at all: the tri arrays are padding-only; both backends must
-    skip the mesh path cleanly."""
+    skip the mesh path cleanly. Off a GPU the production backend refuses
+    to build instead of falling back to the oracle."""
     assert analytic_scene.n_tris == 0
-    r = Renderer(analytic_scene,
-                 RenderConfig(backend=backend, denoise_enable=False,
-                              trace_depth=3), resolution=(64, 64))
+    cfg = RenderConfig(backend=backend, denoise_enable=False, trace_depth=3)
+    if backend == "gpu" and jax.devices()[0].platform != "gpu":
+        with pytest.raises(RuntimeError, match='backend="gpu" needs a GPU'):
+            Renderer(analytic_scene, cfg, resolution=(64, 64))
+        return
+    r = Renderer(analytic_scene, cfg, resolution=(64, 64))
     left, _ = r.render(2)
     left = np.asarray(left)
     assert not np.isnan(left).any()
@@ -87,26 +92,6 @@ def test_depth_one(analytic_scene):
                  resolution=(64, 64))
     left, _ = r.render(1)
     assert not np.isnan(np.asarray(left)).any()
-
-
-def test_depth_one_pallas_path_kernel(cornell_scene):
-    """depth=1 through the pallas whole-path kernel (the reference GUI's
-    minimum depth, preview.cpp:258). Guards the depth-1 pallas code path
-    FUNCTIONALLY (interpret mode on CPU): at depth 1 the kernel runs
-    with texture emission gated off (path.py emit_tex gate), which this
-    exercises end-to-end. Context: round 2 had a depth-1 TPU compile
-    pathology (385 ms/frame vs 16.3 at depth 2; re-measured fixed in
-    round 3: 14.0 vs 14.8 ms) — a recurrence of that PERF regression can
-    only be caught by TPU wall-time measurement, not by this test."""
-    cfg = RenderConfig(backend="pallas", denoise_enable=True,
-                       temporal_enable=True, spatial_enable=True,
-                       atrous_nlevel=2, trace_depth=1)
-    r = Renderer(cornell_scene, cfg, resolution=(64, 64))
-    left, right = r.render(2)
-    left = np.asarray(left)
-    assert not np.isnan(left).any()
-    assert not np.isnan(np.asarray(right)).any()
-    assert left.max() > 0  # emissive primaries land
 
 
 def test_atrous_zero_levels(analytic_scene):
@@ -127,21 +112,21 @@ def test_spatial_only_without_temporal(analytic_scene):
     assert not np.isnan(np.asarray(right)).any()
 
 
-def test_odd_resolution_falls_back(analytic_scene):
-    """Resolutions whose ray count isn't 1024-aligned use the generic
-    bounce path on the pallas backend (and still render)."""
-    r = Renderer(analytic_scene,
-                 RenderConfig(backend="pallas", denoise_enable=False,
-                              trace_depth=2), resolution=(60, 52))
-    left, _ = r.render(1)
-    assert np.asarray(left).shape == (52, 60, 3)
-    assert not np.isnan(np.asarray(left)).any()
-
-
 def test_reference_scene_depths(cornell_scene):
     """depth 10 (the reference GUI max) runs without blowing up."""
     r = Renderer(cornell_scene,
                  RenderConfig(denoise_enable=False, trace_depth=10),
                  resolution=(32, 32))
     left, _ = r.render(1)
+    assert not np.isnan(np.asarray(left)).any()
+
+
+def test_odd_resolution(analytic_scene):
+    """Ray counts that are no multiple of anything render at their own
+    shape."""
+    r = Renderer(analytic_scene,
+                 RenderConfig(denoise_enable=False, trace_depth=2),
+                 resolution=(60, 52))
+    left, _ = r.render(1)
+    assert np.asarray(left).shape == (52, 60, 3)
     assert not np.isnan(np.asarray(left)).any()

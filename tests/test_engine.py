@@ -2,19 +2,17 @@
 semantics, determinism, config behavior. Small resolutions keep the CPU
 suite fast."""
 
-import os
-
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from ptdn_tpu.engine import Renderer
-from ptdn_tpu.engine.wavefront import make_intersector, sample_texture
-from ptdn_tpu.scene import Scene
-from ptdn_tpu.utils.config import RenderConfig
+from ptdn.engine import Renderer
+from ptdn.engine.wavefront import make_intersector, sample_texture
+from ptdn.scene import Scene
+from ptdn.utils.config import RenderConfig
 
-from ptdn_tpu.utils.assets import scenes_dir
+from ptdn.utils.assets import scenes_dir
 
 scene_path_str = str(scenes_dir())
 
@@ -29,7 +27,7 @@ def cornell():
 def test_primary_intersection_gbuffer(cornell):
     cfg = RenderConfig()
     r = Renderer(cornell, cfg, resolution=RES)
-    from ptdn_tpu.engine.wavefront import make_trace_fn
+    from ptdn.engine.wavefront import make_trace_fn
 
     trace = make_trace_fn(cornell, cfg, RES)
     cam = r.camera.frame().as_pytree()
@@ -163,77 +161,30 @@ def test_refractive_scene_runs():
     assert left.max() > 0
 
 
-def test_sorted_wavefront_matches_unsorted():
-    """Coherence sorting (sort_rays) is a pure reordering: RNG follows
-    the carried pixel-id plane and per-lane math is placement-
-    independent, so radiance matches the unsorted fused-bounce path up
-    to compiler fusion differences (the two programs are distinct XLA
-    graphs, so FMA contraction can differ by ~1 ulp on a handful of
-    lanes — observed max 9e-6 on 0.5% of pixels; any REAL divergence
-    (wrong RNG stream, mis-routed lane, broken unsort) is orders of
-    magnitude larger)."""
-    scene = Scene(scene_path_str + "/bunny.txt")
-
-    def render(sort):
-        cfg = RenderConfig(backend="pallas", trace_depth=3,
-                           denoise_enable=False, fuse_path=False,
-                           fuse_bounce=True, sort_rays=sort)
-        r = Renderer(scene, cfg, resolution=(64, 64))
-        left, _ = r.render_frame()
-        left2, _ = r.render_frame()
-        return np.asarray(left), np.asarray(left2)
-
-    a1, a2 = render(False)
-    b1, b2 = render(True)
-    for a, b in ((a1, b1), (a2, b2)):
-        exact = (a == b).all(axis=-1).mean()
-        assert exact > 0.95, f"only {exact:.1%} of pixels exact"
-        assert np.max(np.abs(a - b)) < 1e-4
-
-
-def test_sorted_wavefront_textured_matches_unsorted(cornell):
-    """Same reordering-invariance as above on a TEXTURED scene: the
-    sorted path fetches albedo through the trace kernel's tile-wide
-    texel compaction (albedo_from_tilepack) instead of the per-row
-    sparse caps (which sorted order overflows), so this locks the
-    packed-gather route end to end."""
-    def render(sort):
-        cfg = RenderConfig(backend="pallas", trace_depth=3,
-                           denoise_enable=False, fuse_path=False,
-                           fuse_bounce=True, sort_rays=sort)
-        r = Renderer(cornell, cfg, resolution=(64, 64))
-        left, _ = r.render_frame()
-        return np.asarray(left)
-
-    a = render(False)
-    b = render(True)
-    exact = (a == b).all(axis=-1).mean()
-    assert exact > 0.95, f"only {exact:.1%} of pixels exact"
-    assert np.max(np.abs(a - b)) < 1e-4
-
-
 def test_compat_false_renders_and_differs(cornell):
     """cfg.compat=False (fixed barycentric normal weights) must work end
-    to end on both backends; cornell has a mesh back wall with non-
-    uniform vertex normals only after smoothing — the render stays
-    finite and the two modes agree except where the quirk changes
-    shading (the wall is flat, so images stay close)."""
-    def render(compat, backend):
-        cfg = RenderConfig(backend=backend, trace_depth=3,
-                           denoise_enable=False, compat=compat)
+    to end; cornell has a mesh back wall with non-uniform vertex normals
+    only after smoothing — the render stays finite and the two modes
+    agree except where the quirk changes shading (the wall is flat, so
+    images stay close). The flag must hold on both mesh routes: brute
+    force (cornell's default) and the BVH traversal."""
+    def render(compat, mesh_mode="auto"):
+        cfg = RenderConfig(backend="xla", trace_depth=3,
+                           denoise_enable=False, compat=compat,
+                           mesh_mode=mesh_mode)
         r = Renderer(cornell, cfg, resolution=(64, 64))
         left, _ = r.render_frame()
         return np.asarray(left)
 
-    a = render(True, "xla")
-    b = render(False, "xla")
+    a = render(True)
+    b = render(False)
     assert np.isfinite(b).all()
     # cornell's mesh wall is flat (all vertex normals equal) so the
     # swapped weights are value-neutral there: fixed mode must match
     np.testing.assert_allclose(a, b, atol=1e-5)
-    # pallas backend honors the flag too (same tie-flip budget as the
-    # golden tests: boundary pixels may pick a different winner)
-    c = render(False, "pallas")
+    # the BVH route honors the flag too (boundary pixels may pick a
+    # different winner on exact-tie triangles)
+    c = render(False, "bvh")
     assert np.isfinite(c).all()
     diff = np.abs(b - c).max(axis=-1)
     assert (diff > 1e-3).mean() < 0.01
@@ -444,8 +395,8 @@ SCALE       40 .2 80
     scene = Scene(str(path))
     assert scene.geom_types[0] != 3  # light is analytic (cube)
 
-    from ptdn_tpu.engine.wavefront import make_trace_fn
-    from ptdn_tpu.ops.camera import generate_camera_rays
+    from ptdn.engine.wavefront import make_trace_fn
+    from ptdn.ops.camera import generate_camera_rays
 
     res = (8, 8)
 
@@ -497,178 +448,3 @@ SCALE       40 .2 80
     expected_diff = np.where(hit[:, None], (A * E)[None], 0.0)
     np.testing.assert_allclose(noskip - skip, expected_diff,
                                rtol=3e-5, atol=1e-6)
-
-
-def test_chunk_range_planes_supergroup_superset():
-    """Past 64 chunks chunk_range_planes switches to supergroup-rounded
-    ranges; they must remain an exact SUPERSET of the per-chunk crossed
-    range (exactness contract of the kernel chunk-loop bounds), with
-    the same (n_chunks, -1) none-crossed sentinels."""
-    import types
-
-    from ptdn_tpu.engine import wavefront as WF
-
-    rng = np.random.default_rng(7)
-    n_chunks = 100
-    centers = rng.uniform(-10, 10, (n_chunks, 3)).astype(np.float32)
-    half = rng.uniform(0.2, 1.5, (n_chunks, 3)).astype(np.float32)
-    cmin = centers - half
-    cmax = centers + half
-    ds = types.SimpleNamespace(tri_chunk_min=jnp.asarray(cmin),
-                               tri_chunk_max=jnp.asarray(cmax))
-
-    shape = (2, 128)
-    o = rng.uniform(-12, 12, (3,) + shape).astype(np.float32)
-    d = rng.normal(size=(3,) + shape).astype(np.float32)
-    d /= np.linalg.norm(d, axis=0, keepdims=True)
-
-    lo, hi = WF.chunk_range_planes(
-        ds, *(jnp.asarray(x) for x in o), *(jnp.asarray(x) for x in d),
-        n_chunks)
-    lo = np.asarray(lo)
-    hi = np.asarray(hi)
-
-    # brute-force per-chunk crossed range (the <=64-chunk semantics)
-    inv = 1.0 / d
-    t0 = (cmin[:, :, None, None] - o[None]) * inv[None]
-    t1 = (cmax[:, :, None, None] - o[None]) * inv[None]
-    tmin = np.minimum(t0, t1).max(axis=1)
-    tmax = np.maximum(t0, t1).min(axis=1)
-    crossed = (tmax >= 0.0) & (tmin <= tmax)          # (n_chunks,) + shape
-    any_c = crossed.any(axis=0)
-    ids = np.arange(n_chunks)[:, None, None]
-    true_lo = np.where(crossed, ids, n_chunks).min(axis=0)
-    true_hi = np.where(crossed, ids, -1).max(axis=0)
-
-    assert any_c.any() and not any_c.all()            # both cases exercised
-    # superset: [lo, hi] covers [true_lo, true_hi] wherever any crossing
-    assert (lo[any_c] <= true_lo[any_c]).all()
-    assert (hi[any_c] >= true_hi[any_c]).all()
-    # returned bounds are supergroup-aligned (crossing a union box
-    # without crossing member chunks can widen them further — still a
-    # valid superset, the in-kernel per-lane window culls stay exact).
-    # G mirrors chunk_range_planes' adaptive choice (env-overridable).
-    G = int(os.environ.get("PTDN_SUPER_G", 0) or
-            max(2, -(-n_chunks // 64)))
-    assert ((lo % G == 0) | (lo == n_chunks)).all()
-    assert ((hi % G == G - 1) | (hi == n_chunks - 1) | (hi == -1)).all()
-    # bounds stay in range; a lane reported empty truly crosses nothing
-    # (the converse doesn't hold: a ray can cross a union box while
-    # missing every member chunk and get a non-empty range)
-    assert (lo >= 0).all() and (hi <= n_chunks - 1).all()
-    empty = hi == -1
-    assert empty.any()
-    assert (lo[empty] == n_chunks).all()
-    assert not any_c[empty].any()
-
-
-def test_permute_planes_invariants():
-    """Unit-level invariants of the production permute
-    (engine.wavefront.permute_planes): (a) it realizes the STABLE sort
-    of the key exactly (the act_hi prefix ladder is an optimization,
-    not an approximation); (b) positions at/after the last active lane
-    map to themselves (the dead-tail identity the ladder relies on);
-    (c) fresh-group mode (regroup=G) equals in-row stable key sort
-    followed by the grouped stable sort, applied to every plane."""
-    import jax
-
-    from ptdn_tpu.engine import wavefront as WF
-
-    rng = np.random.default_rng(3)
-    nb, k_pl = 16, 5
-    n = nb * 128
-    SENT = np.int32(1 << 30)
-    key = rng.integers(0, 50, n).astype(np.int32)
-    # previous-bounce shape: actives in the prefix, dead tail at the
-    # end, plus newly-dead lanes sprinkled INSIDE the active prefix
-    n_act = int(n * 0.6)
-    key[n_act:] = SENT
-    newly = rng.choice(n_act, size=n // 10, replace=False)
-    key[newly] = SENT
-    planes = rng.standard_normal((k_pl, nb, 128)).astype(np.float32)
-
-    out = np.asarray(WF.permute_planes(
-        jnp.asarray(planes), jnp.asarray(key), n, nb))
-    order = np.argsort(key, kind="stable")
-    expect = planes.reshape(k_pl, n)[:, order].reshape(k_pl, nb, 128)
-    np.testing.assert_array_equal(out, expect)
-    # (b) the realized permutation is identity on the tail
-    last_active = np.max(np.nonzero(key != SENT)[0])
-    assert (order[last_active + 1:]
-            == np.arange(last_active + 1, n)).all()
-
-    # (c) regroup mode == in-row sort ∘ grouped stable sort
-    G = 4
-    out_rg = np.asarray(WF.permute_planes(
-        jnp.asarray(planes), jnp.asarray(key), n, nb, regroup=G,
-        interpret=True))
-    key2d = key.reshape(nb, 128)
-    o_in = np.argsort(key2d, axis=1, kind="stable")
-    key_in = np.take_along_axis(key2d, o_in, axis=1).reshape(n)
-    pl_in = np.stack([np.take_along_axis(planes[k_].reshape(nb, 128),
-                                         o_in, axis=1)
-                      for k_ in range(k_pl)])
-    gkey = key_in.reshape(n // G, G).min(axis=1)
-    go = np.argsort(gkey, kind="stable")
-    lane_o = (go[:, None] * G + np.arange(G)[None, :]).reshape(n)
-    expect_rg = pl_in.reshape(k_pl, n)[:, lane_o].reshape(k_pl, nb, 128)
-    np.testing.assert_array_equal(out_rg, expect_rg)
-
-
-def test_regroup_permute_matches():
-    """Fresh-group permute (sort_regroup=4: in-row lane sort + G-lane
-    grouped gather, ops/pallas/inrow.py) is a pure reordering — the
-    render must match the per-lane-sorted path pixel-for-pixel up to
-    the usual XLA fusion tie-flips. Diamond-shaped auto-selection
-    (n_chunks <= 8) makes this the production path for such scenes."""
-    scene = Scene(scene_path_str + "/diamond.txt")
-
-    def render(rg):
-        cfg = RenderConfig(backend="pallas", trace_depth=3,
-                           denoise_enable=False, fuse_path=False,
-                           fuse_bounce=True, sort_rays=True,
-                           sort_regroup=rg)
-        r = Renderer(scene, cfg, resolution=(64, 64))
-        left, _ = r.render_frame()
-        return np.asarray(left)
-
-    a = render(0)
-    b = render(4)
-    exact = (a == b).all(axis=-1).mean()
-    assert exact > 0.95, f"only {exact:.1%} of pixels exact"
-
-
-def test_sorted_wavefront_batched_permute_matches(monkeypatch):
-    """Sub-batched coherence permute (wavefront._GATHER_CLIFF): above
-    the gather cliff the wavefront is split into independently-sorted
-    contiguous row batches. Forcing a tiny cliff makes a 64x64 render
-    take the multi-batch path; since per-lane math is placement-
-    independent, radiance must match the single-batch render the same
-    way the sorted path matches the unsorted one."""
-    from ptdn_tpu.engine import wavefront as WF
-
-    scene = Scene(scene_path_str + "/bunny.txt")
-
-    def render():
-        cfg = RenderConfig(backend="pallas", trace_depth=3,
-                           denoise_enable=False, fuse_path=False,
-                           fuse_bounce=True, sort_rays=True)
-        r = Renderer(scene, cfg, resolution=(128, 128))
-        left, _ = r.render_frame()
-        left2, _ = r.render_frame()
-        return np.asarray(left), np.asarray(left2)
-
-    a1, a2 = render()
-    assert WF._LAST_PERMUTE_SPANS == 1
-    # 128x128 = 16384 lanes, ~33 planes -> ~2.1 MB table; 128 KB cliff
-    # forces rb=32 of nb=128 rows -> 4 batches (rb rounds to 32-row
-    # multiples, so 64x64's nb=32 would stay single-span — the batch
-    # split must actually engage for this test to mean anything)
-    monkeypatch.setattr(WF, "_GATHER_CLIFF", 128 * 1024)
-    b1, b2 = render()
-    assert WF._LAST_PERMUTE_SPANS > 1, \
-        f"multi-batch path not exercised (spans={WF._LAST_PERMUTE_SPANS})"
-    for a, b in ((a1, b1), (a2, b2)):
-        exact = (a == b).all(axis=-1).mean()
-        assert exact > 0.95, f"only {exact:.1%} of pixels exact"
-        assert np.max(np.abs(a - b)) < 1e-4

@@ -1,38 +1,32 @@
-"""Golden-image regression: both backends must reproduce the committed
-reference renders (SURVEY.md §4's 'golden-image regression per scene
-config').
+"""Golden-image regression (SURVEY.md §4's 'golden-image regression per
+scene config').
 
-Two golden families:
-
-* ``{name}.npz`` — CPU XLA-oracle renders. The xla backend must match
-  them at float tolerance; the pallas backend at a loose cross-backend
-  budget (float reassociation inside the fused kernels vs the oracle,
-  see FRAC_BUDGET).
-* ``{name}.pallas.npz`` — CPU interpret-mode renders of the PALLAS
-  backend itself (default production flags). The pallas backend must
-  match these at ~1e-6: THIS is the pallas regression lock — the loose
-  cross-backend budget cannot carry it (a 12% tie-flip budget would hide
-  real kernel regressions).
+The goldens ``tests/golden/{name}.npz`` are CPU renders of the XLA
+oracle at 64x64 (tests/golden/generate.py). The oracle must match them at
+float tolerance. On a GPU the production backend must match them within
+the cross-backend bounds (CROSS_RMSE, RAW_FRAC): float reassociation and
+boundary tie-flips in the trace, amplified by the variance-weighted
+filter products at 64x64 x 3 frames.
 
 Scene coverage: all four reference scenes — cornell (analytic geoms +
 textured mesh wall + NEE), diamond (refraction through a mesh), room
 (two textures — texid=1 atlas offsets — and multiple meshes), bunny
-(the pure BVH-mesh scene) — plus two ANIMATED-camera cornell
-configs chosen so temporal reprojection leaves the static-camera stencil
-domain: slow orbit (banded slab gather) and fast orbit (packed-window
-gather) — the two real-motion paths of denoise/reproject.py."""
+(the pure BVH-mesh scene) — plus terrain30k (29,768 triangles, the
+largest BVH) and two ANIMATED-camera cornell configs whose reprojection
+leaves the static-camera domain: slow orbit (within the banded slab
+margin) and fast orbit (beyond it)."""
 
 import os
 
 import numpy as np
 import pytest
 
-from ptdn_tpu.app.automate import CameraAutomation
-from ptdn_tpu.engine import Renderer
-from ptdn_tpu.scene import Scene
-from ptdn_tpu.utils.config import RenderConfig
+from ptdn.app.automate import CameraAutomation
+from ptdn.engine import Renderer
+from ptdn.scene import Scene
+from ptdn.utils.config import RenderConfig
 
-from ptdn_tpu.utils.assets import scenes_dir
+from ptdn.utils.assets import scenes_dir
 
 scene_path_str = str(scenes_dir())
 
@@ -46,36 +40,26 @@ CONFIGS = {
     "cornell_svgf_d3": dict(_SVGF),
     "diamond_raw_d4": dict(denoise_enable=False, trace_depth=4),
     "room_svgf_d3": dict(_SVGF),
-    # the pure BVH-mesh scene (reference scenes/bunny.txt, 4968 tris
-    # through the chunked mesh path) — all four reference scenes covered
+    # the pure BVH-mesh scene (reference scenes/bunny.txt, 4968 tris)
     "bunny_svgf_d3": dict(_SVGF),
+    "terrain30k_svgf_d3": dict(_SVGF),
+    # slow: leaves the stencil domain every frame, stays in the banded
+    # slab; fast: exceeds BAND_MARGIN vertically on frame 1 (max_dy=22
+    # at 64x64) and is banded on frame 2
+    "cornell_svgf_anim_slow": dict(_SVGF, automate_camera=True,
+                                   camera_speed_theta=0.4,
+                                   camera_speed_phi=0.08),
+    "cornell_svgf_anim_fast": dict(_SVGF, automate_camera=True,
+                                   camera_speed_theta=0.5,
+                                   camera_speed_phi=2.1,
+                                   camera_speed_y=1.8),
 }
-SCENES = {
-    "cornell_raw_d3": "cornell",
-    "cornell_svgf_d3": "cornell",
-    "diamond_raw_d4": "diamond",
-    "room_svgf_d3": "room",
-    "bunny_svgf_d3": "bunny",
-}
+SCENES = {name: name.split("_")[0] for name in CONFIGS}
 
-# pallas-golden-only configs: animated cameras (reprojection with real
-# motion; slow stays within the banded slab margin, fast falls through
-# to the packed-window gather)
-PALLAS_CONFIGS = dict(
-    CONFIGS,
-    # verified against motion_bounds at 64x64: slow leaves the stencil
-    # domain every frame and stays in the banded slab; fast exceeds
-    # BAND_MARGIN vertically on frame 1 (max_dy=22 -> packed window)
-    # and is banded on frame 2 — both real-motion paths execute
-    cornell_svgf_anim_slow=dict(_SVGF, automate_camera=True,
-                                camera_speed_theta=0.4,
-                                camera_speed_phi=0.08),
-    cornell_svgf_anim_fast=dict(_SVGF, automate_camera=True,
-                                camera_speed_theta=0.5,
-                                camera_speed_phi=2.1, camera_speed_y=1.8),
-)
-PALLAS_SCENES = dict(SCENES, cornell_svgf_anim_slow="cornell",
-                     cornell_svgf_anim_fast="cornell")
+# cross-backend bounds: RMSE of each panel, and the share of raw-panel
+# pixels whose largest channel differs by more than 1e-3
+CROSS_RMSE = 0.012
+RAW_FRAC = 0.01
 
 
 def _render(backend, cfgkw, scene="cornell", frames=3):
@@ -91,13 +75,13 @@ def _render(backend, cfgkw, scene="cornell", frames=3):
     return np.asarray(left), np.asarray(right)
 
 
-def _param(name):
-    """Mesh-scene pallas renders in interpret mode dominate suite
-    runtime — marked slow (fast path: -m 'not slow'); cornell configs
-    stay in the fast path as the always-on regression lock."""
-    scene = PALLAS_SCENES.get(name) or SCENES.get(name)
-    marks = [pytest.mark.slow] if scene in ("bunny", "room") else []
-    return pytest.param(name, marks=marks)
+def cross_backend_errors(left, right, golden):
+    """(rmse_left, rmse_right, raw_frac) against a golden npz."""
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2)))
+
+    frac = float((np.abs(left - golden["left"]).max(axis=-1) > 1e-3).mean())
+    return rmse(left, golden["left"]), rmse(right, golden["right"]), frac
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -108,45 +92,12 @@ def test_golden_xla(name):
     np.testing.assert_allclose(right, g["right"], atol=2e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", [_param(n) for n in sorted(PALLAS_CONFIGS)])
-def test_golden_pallas_exact(name):
-    """The pallas backend (default production flags) against its OWN
-    goldens at float tolerance — the regression lock for every fused
-    kernel. Runs interpret-mode on CPU (conftest), where renders are
-    deterministic."""
-    g = np.load(os.path.join(GOLDEN, f"{name}.pallas.npz"))
-    left, right = _render("pallas", PALLAS_CONFIGS[name],
-                          PALLAS_SCENES[name])
-    np.testing.assert_allclose(left, g["left"], atol=2e-6, rtol=1e-6)
-    np.testing.assert_allclose(right, g["right"], atol=2e-6, rtol=1e-6)
-
-
-# Measured pallas-vs-xla-golden pixel fractions (|diff| > 1e-3), pinned
-# CPU, 2026-08-18: cornell_raw 0.24% / diamond_raw 0.59% (boundary
-# tie-flip pixels in the trace) — budget 1%. SVGF right panels:
-# cornell 3.6%, room 12.8% with the raw LEFT panel bit-identical on
-# room — i.e. the spread is NOT trace divergence but float
-# reassociation inside the fused reprojection/à-trous kernels vs the
-# XLA oracle, amplified by variance-weighted products at 64x64 x 3
-# frames. RMSE (bounded below at 0.012, measured <= 0.0094) carries
-# the cross-backend quality check; the pallas REGRESSION guarantee is
-# test_golden_pallas_exact above.
-FRAC_BUDGET = {
-    "cornell_raw_d3": 0.01,
-    "diamond_raw_d4": 0.01,
-    "cornell_svgf_d3": 0.06,
-    "room_svgf_d3": 0.16,
-    "bunny_svgf_d3": 0.16,
-}
-
-
-@pytest.mark.parametrize("name", [_param(n) for n in sorted(CONFIGS)])
-@pytest.mark.parametrize("fused", [False, True])
-def test_golden_pallas(name, fused):
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_golden_gpu(gpu, name):
+    """The production backend on the card against the oracle goldens."""
     g = np.load(os.path.join(GOLDEN, f"{name}.npz"))
-    left, right = _render("pallas", dict(CONFIGS[name], fuse_bounce=fused),
-                          SCENES[name])
-    for img, ref in [(left, g["left"]), (right, g["right"])]:
-        diff = np.abs(img - ref).max(axis=-1)
-        assert (diff > 1e-3).mean() < FRAC_BUDGET[name]
-        assert np.sqrt(((img - ref) ** 2).mean()) < 0.012
+    left, right = _render("gpu", CONFIGS[name], SCENES[name])
+    e_left, e_right, frac = cross_backend_errors(left, right, g)
+    assert e_left < CROSS_RMSE and e_right < CROSS_RMSE
+    assert frac < RAW_FRAC

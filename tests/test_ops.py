@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ptdn_tpu.ops import bsdf, intersect, rng
-from ptdn_tpu.ops.bvh_traverse import mesh_brute_force, mesh_bvh_batched
-from ptdn_tpu.ops.camera import OrbitCamera, generate_camera_rays, view_matrix
+from ptdn.ops import bsdf, intersect, rng
+from ptdn.ops.bvh_traverse import mesh_brute_force, mesh_bvh_batched
+from ptdn.ops.camera import OrbitCamera, generate_camera_rays, view_matrix
 
-from ptdn_tpu.utils.assets import scenes_dir
+from ptdn.utils.assets import scenes_dir
 
 scene_path_str = str(scenes_dir())
 
@@ -90,7 +90,7 @@ def test_box_closed_form():
 
 
 def test_box_transformed():
-    from ptdn_tpu.utils import math3d
+    from ptdn.utils import math3d
 
     m = math3d.build_transformation_matrix([0, 2, 0], [0, 0, 0], [4, 4, 4])
     inv = np.linalg.inv(m.astype(np.float64)).astype(np.float32)
@@ -118,31 +118,133 @@ def test_triangle_backface_culling():
 
 # ---------------- BVH traversal vs brute force ----------------
 
-@pytest.mark.parametrize("scene_name", ["bunny.txt", "cornell.txt"])
-def test_bvh_matches_brute_force(scenes_dir, scene_name):
-    from ptdn_tpu.scene import Scene
+MESH_SCENES = ["bunny.txt", "cornell.txt", "diamond.txt", "room.txt",
+               "terrain30k.txt"]
 
-    s = Scene(str(scenes_dir / scene_name))
-    ds = s.device()
-    rng_np = np.random.default_rng(0)
-    n = 256
-    # rays aimed at the mesh bounding boxes from random directions
+
+def _mesh_rays(s, kind, n=256, seed=0):
+    """Camera rays (16x16 through the scene camera) or scattered rays
+    (random origins around the first mesh, aimed near its center)."""
+    if kind == "camera":
+        fr = OrbitCamera(s.camera, resolution=(16, 16)).frame()
+        o, d = generate_camera_rays(fr.as_pytree(), (16, 16))
+        return np.asarray(o), np.asarray(d)
+    rng_np = np.random.default_rng(seed)
     center = (s.mesh_bb_min[0] + s.mesh_bb_max[0]) / 2
     o = (center + rng_np.normal(size=(n, 3)) * 8).astype(np.float32)
     d = (center - o) + rng_np.normal(size=(n, 3)) * 0.5
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d
 
+
+@pytest.mark.parametrize("kind", ["camera", "scattered"])
+@pytest.mark.parametrize("scene_name", MESH_SCENES)
+def test_bvh_matches_brute_force(scenes_dir, scene_name, kind):
+    from ptdn.scene import Scene
+
+    s = Scene(str(scenes_dir / scene_name))
+    ds = s.device()
+    o, d = _mesh_rays(s, kind)
     tb, ub, vb, ib, hb = mesh_brute_force(ds, jnp.asarray(o), jnp.asarray(d),
                                           s.n_tris)
     max_prims = int(s.bvh.prim_count.max())
     tv, uv, vv, iv, hv = mesh_bvh_batched(ds, jnp.asarray(o), jnp.asarray(d),
                                           max_prims=max(max_prims, 1))
-    np.testing.assert_array_equal(np.asarray(hb), np.asarray(hv))
     m = np.asarray(hb)
+    assert m.any()
+    np.testing.assert_array_equal(m, np.asarray(hv))
     np.testing.assert_allclose(np.asarray(tb)[m], np.asarray(tv)[m], rtol=1e-5)
     # same triangle except exact-tie cases
     same = np.asarray(ib)[m] == np.asarray(iv)[m]
     assert same.mean() > 0.99
+
+
+# ---------------- CUDA traversal wrapper ----------------
+
+@pytest.fixture(scope="module")
+def bunny(scenes_dir):
+    from ptdn.scene import Scene
+
+    return Scene(str(scenes_dir / "bunny.txt"))
+
+
+@pytest.mark.parametrize("n", [1, 129, 1000])
+def test_cuda_wrapper_pads_and_slices(bunny, n):
+    """closest_hit pads the ray count to the kernel's block size, hands
+    the kernel whole blocks, and slices its results back; with the plain
+    traversal in the kernel's place it must reproduce mesh_bvh_batched."""
+    from ptdn.ops import cuda_bvh
+
+    ds = bunny.device()
+    max_prims = int(bunny.bvh.prim_count.max())
+    o, d = _mesh_rays(bunny, "scattered", n=n, seed=n)
+    plain = cuda_bvh.plain_call(max_prims)
+    sizes = []
+
+    def spy(o_, d_, *scene):
+        sizes.append(o_.shape[0])
+        return plain(o_, d_, *scene)
+
+    got = cuda_bvh.closest_hit(ds, jnp.asarray(o), jnp.asarray(d), call=spy)
+    want = mesh_bvh_batched(ds, jnp.asarray(o), jnp.asarray(d),
+                            max_prims=max_prims)
+    assert sizes == [-(-n // cuda_bvh.BLOCK) * cuda_bvh.BLOCK]
+    for g, w in zip(got, want):
+        assert g.shape == (n,)
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-6)
+
+
+def test_cuda_wrapper_shard_map_rows(bunny):
+    """On a device mesh the call runs under shard_map over rows: each of
+    4 virtual CPU devices gets its own 200 rays (padded to a block), the
+    scene replicated; results equal the unsharded traversal."""
+    from ptdn.ops import cuda_bvh
+    from ptdn.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, devices=jax.devices("cpu")[:4])
+    ds = bunny.device()
+    max_prims = int(bunny.bvh.prim_count.max())
+    o, d = _mesh_rays(bunny, "scattered", n=800, seed=4)
+    plain = cuda_bvh.plain_call(max_prims)
+    sizes = []
+
+    def spy(o_, d_, *scene):
+        sizes.append(o_.shape[0])
+        return plain(o_, d_, *scene)
+
+    got = jax.jit(lambda o_, d_: cuda_bvh.closest_hit(
+        ds, o_, d_, mesh=mesh, call=spy))(jnp.asarray(o), jnp.asarray(d))
+    want = mesh_bvh_batched(ds, jnp.asarray(o), jnp.asarray(d),
+                            max_prims=max_prims)
+    assert sizes == [256]           # traced once, on a 200-ray shard
+    assert len(got[0].sharding.device_set) == 4
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["camera", "scattered"])
+@pytest.mark.parametrize("scene_name", ["bunny.txt", "terrain30k.txt"])
+def test_cuda_kernel_matches_plain(gpu, scenes_dir, scene_name, kind):
+    """The CUDA kernel against the plain traversal on the card: the same
+    triangle on >= 99.9% of rays; where it agrees, |dt| <= 1e-5 t and
+    |du|, |dv| <= 1e-5 (float32, no matrix products involved)."""
+    from ptdn.ops import cuda_bvh
+    from ptdn.scene import Scene
+
+    s = Scene(str(scenes_dir / scene_name))
+    ds = s.device()
+    o, d = (jnp.asarray(x) for x in _mesh_rays(s, kind, n=4096))
+    cuda_bvh.load()
+    t1, u1, v1, i1, h1 = map(np.asarray, cuda_bvh.closest_hit(ds, o, d))
+    t0, u0, v0, i0, h0 = map(np.asarray, mesh_bvh_batched(
+        ds, o, d, max_prims=int(s.bvh.prim_count.max())))
+    same = i1 == i0
+    assert same.mean() >= 0.999
+    hit = same & h0
+    assert (np.abs(t1 - t0)[hit] <= 1e-5 * np.abs(t0)[hit]).all()
+    assert (np.abs(u1 - u0)[hit] <= 1e-5).all()
+    assert (np.abs(v1 - v0)[hit] <= 1e-5).all()
 
 
 # ---------------- BSDF ----------------
@@ -210,7 +312,7 @@ def test_scatter_rng_stream_parity():
 # ---------------- camera ----------------
 
 def test_orbit_camera_cornell():
-    from ptdn_tpu.scene import Scene
+    from ptdn.scene import Scene
 
     s = Scene(scene_path_str + "/cornell.txt")
     cam = OrbitCamera(s.camera)
@@ -227,7 +329,7 @@ def test_orbit_camera_cornell():
 
 
 def test_view_matrix_roundtrip():
-    from ptdn_tpu.scene import Scene
+    from ptdn.scene import Scene
 
     s = Scene(scene_path_str + "/cornell.txt")
     fr = OrbitCamera(s.camera).frame()
@@ -242,85 +344,6 @@ def test_view_matrix_roundtrip():
     np.testing.assert_allclose(pv[:3], [0, 0, 1], atol=1e-5)
 
 
-def test_sparse_gather_compaction():
-    """Row-compaction sparse gather (ops/pallas/compact.py) must equal a
-    dense masked gather for every density regime, including per-row
-    overflow into higher tiers and the dense fallback."""
-    import jax
-    import jax.numpy as jnp
-
-    from ptdn_tpu.ops.pallas.compact import sparse_gather
-
-    rng = np.random.default_rng(3)
-    T = 5000
-    table = jnp.asarray(
-        rng.integers(0, 2 ** 24, size=(T,), dtype=np.int64).astype(np.int32))
-    R = 16
-    for frac in (0.0, 0.05, 0.3, 0.8, 1.0):
-        mask = rng.random((R, 128)) < frac
-        idxn = np.where(mask, rng.integers(0, T, size=(R, 128)), -1)
-        idx = jnp.asarray(idxn.astype(np.int32))
-        out = np.asarray(sparse_gather(table, idx, 8, interpret=True))
-        ref = np.where(mask, np.asarray(table)[np.maximum(idxn, 0)], 0)
-        assert np.array_equal(out, ref), f"frac={frac}"
-
-
-def test_compact_rows_slots():
-    """compact_rows_pallas routing: slot p of each row holds the p-th
-    valid lane's value; slots beyond the count are zero."""
-    import jax.numpy as jnp
-
-    from ptdn_tpu.ops.pallas.compact import compact_rows_pallas
-
-    rng = np.random.default_rng(4)
-    idxn = np.where(rng.random((8, 128)) < 0.2,
-                    rng.integers(0, 999, size=(8, 128)), -1)
-    cidx, slot, count = compact_rows_pallas(
-        jnp.asarray(idxn.astype(np.int32)), 128, interpret=True)
-    cidx, slot, count = map(np.asarray, (cidx, slot, count))
-    for r in range(8):
-        vals = idxn[r][idxn[r] >= 0]
-        assert count[r, 0] == len(vals)
-        assert np.array_equal(cidx[r, :len(vals)], vals)
-        assert (cidx[r, len(vals):] == 0).all()
-        assert np.array_equal(slot[r][idxn[r] >= 0], np.arange(len(vals)))
-
-
-def test_mesh_compact_path_parity():
-    """The compacted per-chunk mesh path (n_chunks > 4: per-lane window
-    cull + tile-wide ray compaction) must agree with the XLA oracle
-    intersector on a mesh-heavy scene."""
-    import jax.numpy as jnp
-
-    from ptdn_tpu.engine import wavefront as WF
-    from ptdn_tpu.scene import Scene
-    from ptdn_tpu.utils.config import RenderConfig
-
-    scene = Scene(scene_path_str + "/bunny.txt")
-    assert scene.n_tris > 512  # exercises the compacted (>4 chunks) path
-    ds = scene.device()
-    isect_p = WF.make_intersector(scene, RenderConfig(backend="pallas"))
-    isect_x = WF.make_intersector(scene, RenderConfig(backend="xla"))
-    rng = np.random.default_rng(2)
-    n = 1024
-    o = jnp.asarray(rng.uniform(-6, 6, (n, 3)).astype(np.float32))
-    d = rng.normal(size=(n, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d.astype(np.float32))
-    a = isect_p(ds, o, d)
-    b = isect_x(ds, o, d)
-    np.testing.assert_allclose(np.asarray(a["t"]), np.asarray(b["t"]),
-                               atol=1e-4, rtol=1e-5)
-    assert np.array_equal(np.asarray(a["geom_id"]), np.asarray(b["geom_id"]))
-
-    # shadow visibility on the same rays: any-hit vs oracle-derived
-    vis_p = WF.make_light_visibility(scene, RenderConfig(backend="pallas"))
-    lit = np.asarray(vis_p(ds, o, d))
-    assert lit.dtype == np.bool_ and lit.shape == (n,)
-    hit_light = np.asarray(b["geom_id"]) == 0
-    assert np.array_equal(lit, hit_light)
-
-
 def test_interpolate_compat_false_fixes_normal_weights():
     """compat=False uses TRUE barycentric weights for the smoothed
     normal; compat=True replicates the reference's swapped ones
@@ -328,7 +351,7 @@ def test_interpolate_compat_false_fixes_normal_weights():
     that vertex's normal; the compat mode returns a different one."""
     import jax.numpy as jnp
 
-    from ptdn_tpu.ops.intersect import interpolate_tri_hit
+    from ptdn.ops.intersect import interpolate_tri_hit
 
     n0 = jnp.array([[1.0, 0, 0]]); n1 = jnp.array([[0, 1.0, 0]])
     n2 = jnp.array([[0, 0, 1.0]])

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from ptdn_tpu.scene import Scene
-from ptdn_tpu.scene import parser as P
-from ptdn_tpu.scene.bvh import build_bvh
-from ptdn_tpu.utils import math3d
+from ptdn.scene import Scene
+from ptdn.scene import parser as P
+from ptdn.scene.bvh import build_bvh
+from ptdn.utils import math3d
 
 
 ALL_SCENES = ["cornell.txt", "bunny.txt", "diamond.txt", "room.txt"]
@@ -109,7 +109,7 @@ def test_parser_errors(tmp_path):
 
 
 def test_obj_fan_triangulation(scenes_dir):
-    from ptdn_tpu.scene.objloader import load_obj
+    from ptdn.scene.objloader import load_obj
 
     # wall_x.obj: one big n-gon face -> fan of (n-2) triangles
     mesh = load_obj(str(scenes_dir / "Models" / "wall_x.obj"))
@@ -137,10 +137,10 @@ def test_device_scene_upload(cornell_scene):
 
 def test_native_bvh_matches_python():
     """The C++ builder must produce byte-identical trees to the NumPy one."""
-    from ptdn_tpu.native import get_library
-    from ptdn_tpu.scene.bvh import build_bvh, build_bvh_native
-    from ptdn_tpu.scene.objloader import load_obj
-    from ptdn_tpu.scene.scene import Scene as _S
+    from ptdn.native import get_library
+    from ptdn.scene.bvh import build_bvh, build_bvh_native
+    from ptdn.scene.objloader import load_obj
+    from ptdn.scene.scene import Scene as _S
 
     if get_library() is None:
         pytest.skip("no C++ toolchain")
@@ -165,8 +165,8 @@ def test_native_bvh_matches_python():
 
 def test_native_obj_matches_python(scenes_dir):
     """C++ OBJ loader must produce byte-identical arrays to the Python one."""
-    from ptdn_tpu.native import get_library
-    from ptdn_tpu.scene.objloader import load_obj_native, load_obj_python
+    from ptdn.native import get_library
+    from ptdn.scene.objloader import load_obj_native, load_obj_python
 
     if get_library() is None:
         pytest.skip("no C++ toolchain")

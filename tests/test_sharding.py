@@ -12,14 +12,14 @@ pytestmark = pytest.mark.slow
 import jax
 import jax.numpy as jnp
 
-from ptdn_tpu.engine.step import init_frame_state, make_frame_step
-from ptdn_tpu.ops.camera import OrbitCamera, view_matrix
-from ptdn_tpu.parallel.mesh import ROW_AXIS, make_mesh
-from ptdn_tpu.parallel.sharded import make_sharded_step
-from ptdn_tpu.scene import Scene
-from ptdn_tpu.utils.config import RenderConfig
+from ptdn.engine.step import init_frame_state, make_frame_step
+from ptdn.ops.camera import OrbitCamera, view_matrix
+from ptdn.parallel.mesh import ROW_AXIS, make_mesh
+from ptdn.parallel.sharded import make_sharded_step
+from ptdn.scene import Scene
+from ptdn.utils.config import RenderConfig
 
-from ptdn_tpu.utils.assets import scenes_dir
+from ptdn.utils.assets import scenes_dir
 
 scene_path_str = str(scenes_dir())
 
@@ -85,172 +85,3 @@ def test_uneven_height_rejected(cpu_mesh, scene):
     cfg = RenderConfig()
     with pytest.raises(ValueError):
         make_sharded_step(scene, cfg, (48, 31), mesh=cpu_mesh)
-
-
-def test_sharded_sorted_mesh_config_matches_single_device(cpu_mesh):
-    """The PRODUCTION mesh config under shard_map: room.txt (22 triangle
-    chunks -> sort_rays auto-selects ON, fuse_bounce sorted split-pipeline,
-    2 textures, NEE shadow rays). The per-bounce coherence sort is
-    shard-local (each chip permutes only its own lanes, pixel ids ride a
-    carried plane), so the sharded render must match single-device.
-    Raw (left) image per-pixel; denoised to float tolerance (XLA GSPMD
-    denoiser vs single-chip pallas kernels)."""
-    from ptdn_tpu.engine.wavefront import set_pallas_interpret
-
-    room = Scene(scene_path_str + "/room.txt")
-    cfg = RenderConfig(denoise_enable=True, temporal_enable=True,
-                       spatial_enable=True, trace_depth=2, atrous_nlevel=2,
-                       backend="pallas")
-    ds, cam, vm, params = _inputs(room, cfg)
-
-    try:
-        cpu0 = jax.devices("cpu")[0]
-        with jax.default_device(cpu0):
-            step1 = jax.jit(make_frame_step(room, cfg, RES))
-            st1 = init_frame_state(RES)
-            st1, l1, r1 = step1(st1, ds, cam, vm, params, jnp.uint32(0),
-                                jnp.bool_(True))
-
-        stepN, stN, _ = make_sharded_step(room, cfg, RES, mesh=cpu_mesh)
-        stN, lN, rN = stepN(stN, ds, cam, vm, params, jnp.uint32(0),
-                            jnp.bool_(True))
-    finally:
-        set_pallas_interpret(None)
-
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(lN),
-                               atol=2e-5, rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(rN),
-                               atol=1e-3, rtol=1e-4)
-
-
-def test_sharded_regroup_permute_matches_single_device(cpu_mesh):
-    """Fresh-group permute under shard_map: diamond (5 chunks) auto-
-    selects sort_regroup=4, so each shard runs the in-row Pallas lane
-    permute (ops/pallas/inrow.py) + grouped gather on its OWN lanes.
-    Sharded must match single-device (the permute is shard-local, pixel
-    ids ride a carried plane)."""
-    from ptdn_tpu.engine.wavefront import set_pallas_interpret
-
-    diamond = Scene(scene_path_str + "/diamond.txt")
-    cfg = RenderConfig(denoise_enable=False, trace_depth=2,
-                       backend="pallas")
-    ds, cam, vm, params = _inputs(diamond, cfg)
-
-    try:
-        cpu0 = jax.devices("cpu")[0]
-        with jax.default_device(cpu0):
-            step1 = jax.jit(make_frame_step(diamond, cfg, RES))
-            st1 = init_frame_state(RES)
-            st1, l1, r1 = step1(st1, ds, cam, vm, params, jnp.uint32(0),
-                                jnp.bool_(True))
-
-        stepN, stN, _ = make_sharded_step(diamond, cfg, RES, mesh=cpu_mesh)
-        stN, lN, rN = stepN(stN, ds, cam, vm, params, jnp.uint32(0),
-                            jnp.bool_(True))
-    finally:
-        set_pallas_interpret(None)
-
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(lN),
-                               atol=2e-5, rtol=1e-5)
-
-
-def test_sharded_pallas_atrous5_halo_exceeds_shard(cpu_mesh, scene):
-    """The PRODUCTION pallas à-trous pyramid under shard_map with
-    explicit ppermute halo exchange (parallel/halo.py), at the full
-    5-level depth: the level-5 dilated stencil reads 2*32 rows past the
-    slab edge — 9x the 8-row shards here — so the multi-hop halo path
-    (the hard multi-chip communication case, SURVEY §2 parallelism
-    table) is genuinely exercised. The denoised output must match the
-    single-device render; the pyramid itself is the same kernel math,
-    so the only cross-backend spread left is the XLA-GSPMD reprojection
-    vs the single-chip fused pallas stencil."""
-    from ptdn_tpu.engine.wavefront import set_pallas_interpret
-
-    cfg = RenderConfig(denoise_enable=True, temporal_enable=True,
-                       spatial_enable=True, trace_depth=2, atrous_nlevel=5,
-                       backend="pallas")
-    ds, cam, vm, params = _inputs(scene, cfg)
-
-    try:
-        cpu0 = jax.devices("cpu")[0]
-        with jax.default_device(cpu0):
-            step1 = jax.jit(make_frame_step(scene, cfg, RES))
-            st1 = init_frame_state(RES)
-            for f in range(2):
-                st1, l1, r1 = step1(st1, ds, cam, vm, params,
-                                    jnp.uint32(f), jnp.bool_(f == 0))
-
-        stepN, stN, _ = make_sharded_step(scene, cfg, RES, mesh=cpu_mesh)
-        for f in range(2):
-            stN, lN, rN = stepN(stN, ds, cam, vm, params, jnp.uint32(f),
-                                jnp.bool_(f == 0))
-    finally:
-        set_pallas_interpret(None)
-
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(lN),
-                               atol=2e-5, rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(rN),
-                               atol=1e-3, rtol=1e-4)
-
-
-def test_halo_rows_multi_hop(cpu_mesh):
-    """parallel.halo.halo_rows against a directly-computed answer: each
-    shard's (top, bottom) halo must equal the global array's rows above/
-    below its slab, zero-filled past the image edges — including halos
-    spanning MULTIPLE shards (24 rows from 8-row shards = 3 hops)."""
-    from jax.sharding import PartitionSpec as P
-
-    from ptdn_tpu.parallel.halo import halo_rows
-
-    h, w, n = 64, 16, 8
-    h_loc = h // n
-    x = np.arange(h * w, dtype=np.float32).reshape(h, w)
-    for halo in (4, 8, 24):
-        def body(xs, halo=halo):
-            t, b = halo_rows(xs, halo, ROW_AXIS)
-            return jnp.concatenate([t, xs, b], axis=0)
-
-        f = jax.shard_map(body, mesh=cpu_mesh, in_specs=P(ROW_AXIS),
-                          out_specs=P(ROW_AXIS), check_vma=False)
-        out = np.asarray(f(jnp.asarray(x)))
-        out = out.reshape(n, h_loc + 2 * halo, w)
-        padded = np.concatenate([np.zeros((halo, w), np.float32), x,
-                                 np.zeros((halo, w), np.float32)])
-        for i in range(n):
-            want = padded[i * h_loc: i * h_loc + h_loc + 2 * halo]
-            np.testing.assert_array_equal(out[i], want)
-
-
-def test_sharded_pallas_trace_matches_single_device(cpu_mesh, scene):
-    """backend="pallas" multi-chip: the trace runs under shard_map with
-    per-shard row offsets threaded into pixel coords and RNG lane seeds
-    — the RAW (left) image must match the single-device pallas render
-    per pixel; the denoised output (XLA denoiser under GSPMD vs pallas
-    kernels single-chip) matches to float tolerance."""
-    from ptdn_tpu.engine.wavefront import set_pallas_interpret
-
-    cfg = RenderConfig(denoise_enable=True, temporal_enable=True,
-                       spatial_enable=True, trace_depth=3, atrous_nlevel=3,
-                       backend="pallas")
-    ds, cam, vm, params = _inputs(scene, cfg)
-
-    try:
-        cpu0 = jax.devices("cpu")[0]
-        with jax.default_device(cpu0):
-            step1 = jax.jit(make_frame_step(scene, cfg, RES))
-            st1 = init_frame_state(RES)
-            for f in range(2):
-                st1, l1, r1 = step1(st1, ds, cam, vm, params,
-                                    jnp.uint32(f), jnp.bool_(f == 0))
-
-        stepN, stN, _ = make_sharded_step(scene, cfg, RES, mesh=cpu_mesh)
-        for f in range(2):
-            stN, lN, rN = stepN(stN, ds, cam, vm, params, jnp.uint32(f),
-                                jnp.bool_(f == 0))
-    finally:
-        set_pallas_interpret(None)
-
-    np.testing.assert_allclose(np.asarray(l1), np.asarray(lN),
-                               atol=2e-5, rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(r1), np.asarray(rN),
-                               atol=1e-3, rtol=1e-4)

@@ -1,5 +1,5 @@
 """Scripted tests for the interactive viewer's command dispatcher
-(`app/viewer.py:Viewer.handle`) — the TPU-native stand-in for the
+(`app/viewer.py:Viewer.handle`) — the headless stand-in for the
 reference's GLFW key/mouse callbacks (main.cpp:211-304) and ImGui
 controls (preview.cpp:211-375). Drives every command branch headlessly;
 a typo in any branch fails here instead of shipping."""
@@ -9,12 +9,12 @@ import os
 import numpy as np
 import pytest
 
-from ptdn_tpu.app.viewer import Viewer
-from ptdn_tpu.engine import Renderer
-from ptdn_tpu.scene import Scene
-from ptdn_tpu.utils.config import RenderConfig
+from ptdn.app.viewer import Viewer
+from ptdn.engine import Renderer
+from ptdn.scene import Scene
+from ptdn.utils.config import RenderConfig
 
-from ptdn_tpu.utils.assets import scenes_dir
+from ptdn.utils.assets import scenes_dir
 
 scene_path_str = str(scenes_dir())
 
@@ -75,7 +75,7 @@ def test_stdin_poll_factory_line_mode(monkeypatch, tmp_path):
     command per ready line — the mode every scripted/CI session uses."""
     import sys as _sys
 
-    from ptdn_tpu.app.viewer import _stdin_poll_factory
+    from ptdn.app.viewer import _stdin_poll_factory
 
     p = tmp_path / "cmds.txt"
     p.write_text("sigma_l 0.7\n.\n")
@@ -96,7 +96,7 @@ def test_stdin_poll_factory_cbreak_colon_commands(monkeypatch):
     import pty as _pty
     import sys as _sys
 
-    from ptdn_tpu.app.viewer import _stdin_poll_factory
+    from ptdn.app.viewer import _stdin_poll_factory
 
     master, slave = _pty.openpty()
     try:
@@ -139,7 +139,7 @@ def test_ansi_halfblocks_renderer():
     """utils/termview.py: truecolor half-block frames — the headless
     stand-in for the reference's per-frame window blit
     (preview.cpp:377-413)."""
-    from ptdn_tpu.utils.termview import _downsample, ansi_halfblocks
+    from ptdn.utils.termview import _downsample, ansi_halfblocks
 
     # box-average downsample is exact on aligned blocks
     img = np.zeros((4, 4, 3), np.float32)
